@@ -42,12 +42,12 @@ def main():
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
     import bench
-    from mav_tube_trajectory_generation_tpu.solver import auto, ipm, qcqp
+    from mav_tube_trajectory_generation.solver import auto, ipm, qcqp
 
     k = 10
     admm_cfg = qcqp.ADMMConfig(rho=0.005, n_stages=1, n_iters=48,
                                rho_tube_factor=0.125, rho_half_factor=0.125,
-                               use_pallas=False)
+                               padded_lanes=False)
     (_, free, _, df_free, times, waypoints, _, values) = bench.make_inputs(
         k, total, seed=seed)
     df_free = np.asarray(df_free, np.float64)

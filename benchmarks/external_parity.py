@@ -37,7 +37,7 @@ def scenario_tensors(free, df, t, w, r):
     (A (n_ball,3,nfd), b (n_ball,3), rad (n_ball,)), half (G (n_half,nfd),
     h (n_half,))."""
     import jax.numpy as jnp
-    from mav_tube_trajectory_generation_tpu.solver import linear, qcqp
+    from mav_tube_trajectory_generation.solver import linear, qcqp
     nf = free.n_fixed
     rmat = np.asarray(linear.assemble_r(free, jnp.asarray(t)))
     r_pf, r_pp = rmat[nf:, :nf], rmat[nf:, nf:]
@@ -128,7 +128,7 @@ def main():
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
     import bench
-    from mav_tube_trajectory_generation_tpu.solver import ipm, linear, qcqp
+    from mav_tube_trajectory_generation.solver import ipm, linear, qcqp
 
     k = 10
     buckets = [(0.5, 0.8), (0.3, 0.5), (0.1, 0.3), (0.02, 0.1)]
@@ -156,7 +156,7 @@ def main():
     # 12k parity study trusts -- here it is the thing under test).
     admm_cfg = qcqp.ADMMConfig(rho=0.005, n_stages=1, n_iters=48,
                                rho_tube_factor=0.125, rho_half_factor=0.125,
-                               use_pallas=False)
+                               padded_lanes=False)
     ipm_cfg = ipm.IPMConfig(n_iters=30)
     gt = jax.jit(jax.vmap(lambda d1, d2, d3, d4: ipm.solve_qcqp_polished(
         free, d1, d2, d3, d4, admm_config=admm_cfg, ipm_config=ipm_cfg)))(

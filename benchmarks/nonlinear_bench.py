@@ -8,7 +8,7 @@ Two batched backends are timed on the flagship 10-segment 3-D N=10 family:
     nonlinear.h:61,125): K+1 simplex points, one batched inner solve per
     iteration per point.
   * Gradient descent THROUGH the inner Cholesky solve (optimize_time_gradient)
-    -- the TPU-native replacement for the reference's 2K-finite-difference
+    -- the batched replacement for the reference's 2K-finite-difference
     time gradients (getCostAndGradientTime, nonlinear_impl.h:2495-2584).
 
 Usage: python benchmarks/nonlinear_bench.py [--batch=N] [--iters=N]
@@ -25,9 +25,9 @@ import jax.numpy as jnp
 
 
 def main():
-    from mav_tube_trajectory_generation_tpu.solver import (linear, nonlinear,
+    from mav_tube_trajectory_generation.solver import (linear, nonlinear,
                                                            structure as sm)
-    from mav_tube_trajectory_generation_tpu.models.vertex import (
+    from mav_tube_trajectory_generation.models.vertex import (
         segment_times_nfabian)
 
     batch, iters, k = 1024, 30, 10

@@ -10,7 +10,7 @@ quality.
 
 --rows runs the legacy row-layout IPM (solver/ipm.solve_qcqp_ipm) for
 comparison: it streams the constraint tensors ~8x per Newton step where the
-lanes path makes one fused Pallas pass (ops/ipm_kernel).
+lanes path evaluates once (ops/ipm_eval).
 
 Usage: python benchmarks/polished_bench.py [--batch=N] [--rows]
 """
@@ -27,7 +27,7 @@ import jax.numpy as jnp
 
 def main():
     import bench
-    from mav_tube_trajectory_generation_tpu.solver import (ipm, ipm_lanes,
+    from mav_tube_trajectory_generation.solver import (ipm, ipm_lanes,
                                                            linear, qcqp)
 
     k, batch = 10, 6144
@@ -40,7 +40,7 @@ def main():
 
     admm = qcqp.ADMMConfig(rho=0.005, n_stages=1, n_iters=48,
                            rho_tube_factor=0.125, rho_half_factor=0.125,
-                           use_pallas=True)
+                           padded_lanes=True)
 
     if rows:
         n_ipm = 10

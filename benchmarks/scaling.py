@@ -2,9 +2,9 @@
 efficiency at 2+ hosts).
 
 Runs the sharded flagship solve on 1 device and on all available devices and
-reports throughput + scaling efficiency.  On a TPU pod slice, run one process
-per host with jax.distributed (parallel/mesh.initialize_distributed); on this
-single-chip dev box it can be exercised with the virtual CPU mesh:
+reports throughput + scaling efficiency.  On several hosts, run one process
+per host with jax.distributed (parallel/mesh.initialize_distributed); without
+several devices it can be exercised with the virtual CPU mesh:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python benchmarks/scaling.py
@@ -24,10 +24,10 @@ import jax.numpy as jnp
 
 
 def main():
-    from mav_tube_trajectory_generation_tpu.parallel import mesh as pmesh
-    from mav_tube_trajectory_generation_tpu.solver import linear
-    from mav_tube_trajectory_generation_tpu.solver import structure as sm
-    from mav_tube_trajectory_generation_tpu.models.vertex import (
+    from mav_tube_trajectory_generation.parallel import mesh as pmesh
+    from mav_tube_trajectory_generation.solver import linear
+    from mav_tube_trajectory_generation.solver import structure as sm
+    from mav_tube_trajectory_generation.models.vertex import (
         segment_times_nfabian)
 
     devices = jax.devices()

@@ -32,9 +32,9 @@ def main():
             rmax = float(a.split("=")[1])
     import jax
     import jax.numpy as jnp
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, ".")
     from bench import make_inputs
-    from mav_tube_trajectory_generation_tpu.solver import auto
+    from mav_tube_trajectory_generation.solver import auto
 
     (std, free, df_std, df_free, times, waypoints, _,
      values) = make_inputs(10, batch)

@@ -24,9 +24,11 @@ if "--cpu" in sys.argv:
     jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
-import mav_tube_trajectory_generation_tpu as mtg
-from mav_tube_trajectory_generation_tpu.solver import nonlinear
-from mav_tube_trajectory_generation_tpu.utils import timing, export
+import mav_tube_trajectory_generation as mtg
+from mav_tube_trajectory_generation.solver import nonlinear
+from mav_tube_trajectory_generation.utils import compile_cache, timing, export
+
+compile_cache.enable()
 
 
 def build_map():

@@ -10,7 +10,7 @@ each tracking a moving goal through its waypoint corridor; every tick
      Trajectory::getVertexAtTime workflow for replanning),
   2. moves the goal,
   3. re-solves the tube QCQP warm-started from the previous tick's free
-     derivatives (solve_qcqp_batch, 4 scenarios per Pallas kernel instance).
+     derivatives (solve_qcqp_batch on the padded lane layout).
 
 One jitted ``tick`` program; the loop measures the sustained replan rate
 (agents x Hz) on one chip.
@@ -31,10 +31,12 @@ import jax.numpy as jnp
 def main():
     if "--cpu" in sys.argv:
         jax.config.update("jax_platforms", "cpu")
-    from mav_tube_trajectory_generation_tpu.solver import linear, qcqp
-    from mav_tube_trajectory_generation_tpu.solver import structure as sm
-    from mav_tube_trajectory_generation_tpu.models import trajectory as tj
-    from mav_tube_trajectory_generation_tpu.models.vertex import (
+    from mav_tube_trajectory_generation.utils import compile_cache
+    compile_cache.enable()
+    from mav_tube_trajectory_generation.solver import linear, qcqp
+    from mav_tube_trajectory_generation.solver import structure as sm
+    from mav_tube_trajectory_generation.models import trajectory as tj
+    from mav_tube_trajectory_generation.models.vertex import (
         segment_times_nfabian)
 
     agents, ticks, k = 2048, 20, 10
@@ -69,7 +71,7 @@ def main():
 
     admm = qcqp.ADMMConfig(rho=0.005, n_stages=1, n_iters=48,
                            rho_tube_factor=0.125, rho_half_factor=0.125,
-                           use_pallas=jax.default_backend() != "cpu")
+                           padded_lanes=True)
 
     def tick(d_fixed, x_prev, wps, t_fly):
         """One replan: solve, fly t_fly along it, re-anchor, move goal."""

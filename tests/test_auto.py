@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mav_tube_trajectory_generation_tpu.solver import auto, ipm, linear, qcqp
-from mav_tube_trajectory_generation_tpu.solver.structure import (
+from mav_tube_trajectory_generation.solver import auto, ipm, linear, qcqp
+from mav_tube_trajectory_generation.solver.structure import (
     free_interior_mask, make_structure)
-from mav_tube_trajectory_generation_tpu.models.vertex import (
+from mav_tube_trajectory_generation.models.vertex import (
     segment_times_nfabian)
 
 pytestmark = pytest.mark.slow  # ADMM batch + interpret lanes + f64 tier-2: minutes
@@ -69,7 +69,7 @@ def test_auto_merged_solution_consistency(mixed_batch):
     free, df, _, times, waypoints, radii, values = mixed_batch
     admm_cfg = qcqp.ADMMConfig(rho=0.005, n_stages=1, n_iters=48,
                                rho_tube_factor=0.125, rho_half_factor=0.125,
-                               use_pallas=True)
+                               padded_lanes=True)
     a = qcqp.solve_qcqp_batch(free, jnp.asarray(df), jnp.asarray(times),
                               jnp.asarray(waypoints), jnp.asarray(radii),
                               config=admm_cfg,

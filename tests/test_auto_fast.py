@@ -12,11 +12,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mav_tube_trajectory_generation_tpu.solver import auto, linear, qcqp
-from mav_tube_trajectory_generation_tpu.solver.ipm import IPMConfig
-from mav_tube_trajectory_generation_tpu.solver.structure import (
+from mav_tube_trajectory_generation.solver import auto, linear, qcqp
+from mav_tube_trajectory_generation.solver.ipm import IPMConfig
+from mav_tube_trajectory_generation.solver.structure import (
     free_interior_mask, make_structure)
-from mav_tube_trajectory_generation_tpu.models.vertex import (
+from mav_tube_trajectory_generation.models.vertex import (
     segment_times_nfabian)
 
 K, N, D = 4, 10, 3
@@ -49,7 +49,7 @@ def small_batch():
 #: =False) ADMM keeps the CPU path out of interpret-mode Pallas.
 _ADMM = qcqp.ADMMConfig(rho=0.005, n_stages=1, n_iters=24,
                         rho_tube_factor=0.125, rho_half_factor=0.125,
-                        use_pallas=False)
+                        padded_lanes=False)
 _IPM = IPMConfig(n_iters=8, snap_iters=2, sigma_min=0.3, corrector=False)
 
 

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import mav_tube_trajectory_generation_tpu as mtg
-from mav_tube_trajectory_generation_tpu.solver import banded, structure as sm
+import mav_tube_trajectory_generation as mtg
+from mav_tube_trajectory_generation.solver import banded, structure as sm
 
 N, H = 10, 5
 
@@ -101,7 +101,7 @@ def test_banded_vmap():
 def test_spd_block_tridiag_inverse_matches_dense():
     """Block-Thomas inverse vs the dense Schur inverse on SPD
     block-tridiagonal matrices (the QCQP stage-KKT structure)."""
-    from mav_tube_trajectory_generation_tpu.ops import linalg
+    from mav_tube_trajectory_generation.ops import linalg
     rng = np.random.RandomState(0)
     m, b = 9, 15
     n = m * b
@@ -152,7 +152,7 @@ def test_qcqp_kkt_is_block_tridiagonal():
     """The structured KKT-inverse fast path's load-bearing assumption:
     kron(R_pp, I3) + rho G^T G is EXACTLY block-tridiagonal in vertex-major
     free-column order for the free-interior family."""
-    from mav_tube_trajectory_generation_tpu.solver import qcqp, linear
+    from mav_tube_trajectory_generation.solver import qcqp, linear
     k = 6
     free = sm.make_structure(sm.free_interior_mask(k + 1, N), 3, N)
     blk = qcqp._kkt_tridiag_block(free)
@@ -163,8 +163,8 @@ def test_qcqp_kkt_is_block_tridiagonal():
     times = jnp.asarray(mtg.segment_times_nfabian(wp[None], 3.0, 5.0))[0]
     df = mtg.extract_fixed_values(free, jnp.asarray(vals))
     layout = qcqp._flagship_layout(free)
-    cfg = qcqp.ADMMConfig(rho=0.01, use_pallas=True)
-    pre = qcqp._pallas_pre(free, df, times, jnp.asarray(wp),
+    cfg = qcqp.ADMMConfig(rho=0.01, padded_lanes=True)
+    pre = qcqp._padded_pre(free, df, times, jnp.asarray(wp),
                            jnp.full((k, 2), 0.7), cfg, None, layout)
     gt = np.asarray(pre.gt, np.float64)
     kkt = np.asarray(pre.p_big, np.float64) + 0.01 * (gt @ gt.T)

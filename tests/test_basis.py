@@ -9,7 +9,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mav_tube_trajectory_generation_tpu.ops import basis
+from mav_tube_trajectory_generation.ops import basis
 
 
 def test_base_coefficients_table():

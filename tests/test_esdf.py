@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mav_tube_trajectory_generation_tpu.models import esdf
+from mav_tube_trajectory_generation.models import esdf
 
 
 def test_edt_matches_bruteforce():
@@ -85,7 +85,7 @@ def test_native_edt_matches_xla():
     """The O(n) C++ Felzenszwalb builder (native/edt.cpp) must agree with
     the in-graph XLA min-plus EDT exactly (both are exact transforms) --
     non-cubic shape on purpose (a stride bug once survived cubic tests)."""
-    from mav_tube_trajectory_generation_tpu import native
+    from mav_tube_trajectory_generation import native
     if not native.edt_available():
         pytest.skip("C++ toolchain unavailable")
     rng = np.random.RandomState(3)
@@ -105,7 +105,7 @@ def test_native_edt_matches_xla():
 
 
 def test_native_edt_bruteforce_oracle():
-    from mav_tube_trajectory_generation_tpu import native
+    from mav_tube_trajectory_generation import native
     if not native.edt_available():
         pytest.skip("C++ toolchain unavailable")
     rng = np.random.RandomState(1)

@@ -18,7 +18,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from benchmarks.external_parity import (min_violation, scenario_tensors,
                                         solve_scipy)
 import bench
-from mav_tube_trajectory_generation_tpu.solver import ipm, linear, qcqp
+from mav_tube_trajectory_generation.solver import ipm, linear, qcqp
 
 pytestmark = pytest.mark.slow   # ~16 scipy solves + an f64 polished batch
 
@@ -37,7 +37,7 @@ def test_external_slsqp_agrees_on_slice():
 
     admm_cfg = qcqp.ADMMConfig(rho=0.005, n_stages=1, n_iters=48,
                                rho_tube_factor=0.125,
-                               rho_half_factor=0.125, use_pallas=False)
+                               rho_half_factor=0.125, padded_lanes=False)
     gt = jax.jit(jax.vmap(lambda d1, d2, d3, d4: ipm.solve_qcqp_polished(
         free, d1, d2, d3, d4, admm_config=admm_cfg,
         ipm_config=ipm.IPMConfig(n_iters=30))))(

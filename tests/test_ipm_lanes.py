@@ -2,8 +2,7 @@
 
 The lanes path must reproduce the rows path's SOLUTIONS (not its float32
 iteration chaos): near-identical optimal costs on feasible scenarios, and
-violations in the same or better class.  Runs on CPU with the kernel in
-interpret mode (ops/ipm_kernel auto-falls back off-TPU).
+violations in the same or better class.
 """
 
 import jax
@@ -11,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mav_tube_trajectory_generation_tpu.solver import ipm, ipm_lanes, qcqp
-from mav_tube_trajectory_generation_tpu.solver.structure import (
+from mav_tube_trajectory_generation.solver import ipm, ipm_lanes, qcqp
+from mav_tube_trajectory_generation.solver.structure import (
     free_interior_mask, make_structure)
-from mav_tube_trajectory_generation_tpu.models.vertex import (
+from mav_tube_trajectory_generation.models.vertex import (
     segment_times_nfabian)
 
 
@@ -33,12 +32,12 @@ def scenario_batch():
     times = np.asarray(segment_times_nfabian(waypoints, 3.0, 5.0),
                        dtype=np.float32)
     radii = np.full((b, K, 2), 0.8, dtype=np.float32)
-    from mav_tube_trajectory_generation_tpu.solver import linear
+    from mav_tube_trajectory_generation.solver import linear
     df = np.asarray(linear.extract_fixed_values(free, jnp.asarray(values)),
                     dtype=np.float32)
     admm = qcqp.ADMMConfig(rho=0.005, n_stages=1, n_iters=48,
                            rho_tube_factor=0.125, rho_half_factor=0.125,
-                           use_pallas=True)
+                           padded_lanes=True)
     a = qcqp.solve_qcqp_batch(free, df, jnp.asarray(times),
                               jnp.asarray(waypoints), jnp.asarray(radii),
                               config=admm, warmstart_values=values,
@@ -129,64 +128,6 @@ def test_lanes_static_infeasibility_certificate(scenario_batch):
     assert bool(np.asarray(lanes.infeasible).all())
 
 
-@pytest.mark.slow
-def test_fused_kernel_matches_scan_path(scenario_batch):
-    """The whole-IPM fused kernel (ops/ipm_kernel.ipm_solve_fused) lands in
-    the scan path's solution class: costs within 0.1% median / 1% worst,
-    violations in the same class.  (Bitwise equality is not expected: the
-    fused factor uses in-kernel Gauss-Jordan pivot inverses, the scan path
-    banded.spd_block_tridiag_factor -- different f32 rounding, same
-    endgame.)"""
-    free, df, times, waypoints, radii, a = scenario_batch
-    kw = dict(x0=a.d_free, lam0_ball=a.dual_ball, lam0_half=a.dual_half,
-              scenario_block=4)
-    scan = ipm_lanes.solve_qcqp_ipm_lanes(
-        free, df, times, waypoints, radii,
-        config=ipm.IPMConfig(n_iters=10, sigma_min=0.3, corrector=False),
-        **kw)
-    fused = ipm_lanes.solve_qcqp_ipm_lanes(
-        free, df, times, waypoints, radii,
-        config=ipm.IPMConfig(n_iters=10, sigma_min=0.3, corrector=False,
-                             fused=True), **kw)
-    rel = np.abs(np.asarray(fused.cost) - np.asarray(scan.cost)) \
-        / np.asarray(scan.cost)
-    assert np.median(rel) < 1e-3, rel
-    assert rel.max() < 1e-2, rel
-    v = np.asarray(fused.max_violation)
-    assert v.max() < 3e-3, v
-    assert np.median(v) < 2e-4, v
-    # Mehrotra + fused is rejected (the kernel implements corrector=False).
-    with pytest.raises(ValueError):
-        ipm_lanes.solve_qcqp_ipm_lanes(
-            free, df, times, waypoints, radii,
-            config=ipm.IPMConfig(n_iters=2, fused=True), **kw)
-
-
-@pytest.mark.slow
-def test_pipelined_kernel_matches_scan_path(scenario_batch):
-    """The pipelined step kernel (ops/ipm_kernel.ipm_pipe_step: previous
-    step's factored solve + update fused with the next eval, XLA keeping
-    only the batched band factor) lands in the scan path's solution class."""
-    free, df, times, waypoints, radii, a = scenario_batch
-    kw = dict(x0=a.d_free, lam0_ball=a.dual_ball, lam0_half=a.dual_half,
-              scenario_block=4)
-    scan = ipm_lanes.solve_qcqp_ipm_lanes(
-        free, df, times, waypoints, radii,
-        config=ipm.IPMConfig(n_iters=10, sigma_min=0.3, corrector=False),
-        **kw)
-    pipe = ipm_lanes.solve_qcqp_ipm_lanes(
-        free, df, times, waypoints, radii,
-        config=ipm.IPMConfig(n_iters=10, sigma_min=0.3, corrector=False,
-                             pipelined=True), **kw)
-    rel = np.abs(np.asarray(pipe.cost) - np.asarray(scan.cost)) \
-        / np.asarray(scan.cost)
-    assert np.median(rel) < 1e-3, rel
-    assert rel.max() < 1e-2, rel
-    v = np.asarray(pipe.max_violation)
-    assert v.max() < 3e-3, v
-    assert np.median(v) < 2e-4, v
-
-
 def test_finite_step_mask_catches_nan_directions():
     """A NaN Newton direction yields a *finite* alpha (NaN < 0 is False in
     the fraction-to-boundary ratios -> all inf -> alpha = 1.0), so the
@@ -229,31 +170,81 @@ def test_lanes_internal_batch_padding(scenario_batch):
                                np.asarray(full.d_free[:5]), atol=1e-5)
 
 
-def test_ipm_kernel_eval_matches_xla_core():
-    """The Pallas kernel (interpret) and a direct _eval_core call agree."""
-    from mav_tube_trajectory_generation_tpu.ops import ipm_kernel
-    rng = np.random.RandomState(0)
-    s_blk, nfd, nb_p, nh_p = 2, 24, 128, 128
+def _random_eval_inputs(s_blk=2, nfd=30, nb_p=128, nh_p=128, seed=0):
+    rng = np.random.RandomState(seed)
     m_p = 3 * nb_p + nh_p
-    n_ball = 17
-    gt = jnp.asarray(rng.randn(s_blk, nfd, m_p).astype(np.float32))
-    b = jnp.asarray(rng.randn(s_blk, 1, m_p).astype(np.float32))
-    rb = jnp.asarray(rng.uniform(0.5, 2.0, (s_blk, 1, nb_p))
-                     .astype(np.float32))
-    x = jnp.asarray(rng.randn(s_blk, nfd, 1).astype(np.float32))
-    s = jnp.asarray(rng.uniform(0.1, 2.0, (s_blk, 1, m_p))
-                    .astype(np.float32))
-    lam = jnp.asarray(rng.uniform(0.0, 1.0, (s_blk, 1, m_p))
-                      .astype(np.float32))
-    y, c, jtwr2, jts, gram = ipm_kernel.ipm_eval_step(
-        gt, b, rb, x, s, lam, nb_p=nb_p, n_ball=n_ball, interpret=True)
-    y2, c2, jtwr22, jts2, lam_ball, aj, w_aj = ipm_kernel._eval_core(
-        gt, b, rb, x, s, lam, nb_p=nb_p, n_ball=n_ball, w_cap=1e10)
-    gram2 = jnp.einsum('snm,som->sno', gt * lam_ball, gt) \
-        + jnp.einsum('snm,som->sno', aj * w_aj, aj)
-    np.testing.assert_allclose(np.asarray(y), np.asarray(y2), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(c), np.asarray(c2), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(jtwr2), np.asarray(jtwr22),
-                               atol=1e-3)
-    np.testing.assert_allclose(np.asarray(gram), np.asarray(gram2),
-                               rtol=1e-4, atol=1e-3)
+    f = lambda a: jnp.asarray(a.astype(np.float32))
+    return dict(
+        gt=f(rng.randn(s_blk, nfd, m_p)), b=f(rng.randn(s_blk, 1, m_p)),
+        rb=f(rng.uniform(0.5, 2.0, (s_blk, 1, nb_p))),
+        x=f(rng.randn(s_blk, nfd, 1)),
+        s=f(rng.uniform(0.1, 2.0, (s_blk, 1, m_p))),
+        lam=f(rng.uniform(0.0, 1.0, (s_blk, 1, m_p)))), nb_p
+
+
+@pytest.mark.parametrize("phr", [False, True])
+def test_gram_band_matches_full_eval_core_gram(phr):
+    """ipm_eval_step's per-block Gram band equals the band sliced from the
+    full weighted Gram that _eval_core's factors define, and its other
+    outputs are _eval_core's."""
+    from mav_tube_trajectory_generation.ops import ipm_eval
+    args, nb_p = _random_eval_inputs()
+    blk, n_ball = 15, 17
+    y, c, jtwr2, jts, gd, gu = ipm_eval.ipm_eval_step(
+        **args, nb_p=nb_p, n_ball=n_ball, band_block=blk, w_cap=1e6,
+        phr=phr)
+    y2, c2, jtwr22, jts2, lam_ball, aj, w_aj = ipm_eval._eval_core(
+        *args.values(), nb_p=nb_p, n_ball=n_ball, w_cap=1e6, phr=phr)
+    gt = np.asarray(args["gt"], np.float64)
+    full = (np.einsum('snm,som->sno', gt * np.asarray(lam_ball), gt)
+            + np.einsum('snm,som->sno', np.asarray(aj * w_aj),
+                        np.asarray(aj)))
+    m_blk = gt.shape[1] // blk
+    assert gd.shape == (2, m_blk, blk, blk)
+    assert gu.shape == (2, m_blk - 1, blk, blk)
+    for i in range(m_blk):
+        sl = slice(i * blk, (i + 1) * blk)
+        np.testing.assert_allclose(np.asarray(gd[:, i]), full[:, sl, sl],
+                                   rtol=1e-4, atol=1e-3)
+        if i + 1 < m_blk:
+            sl2 = slice((i + 1) * blk, (i + 2) * blk)
+            np.testing.assert_allclose(np.asarray(gu[:, i]),
+                                       full[:, sl, sl2],
+                                       rtol=1e-4, atol=1e-3)
+    for a, b_ in ((y, y2), (c, c2), (jtwr2, jtwr22), (jts, jts2)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b_))
+
+
+def test_lanes_snap_only_schedule():
+    """n_iters=0 (the strict router's tier-0 snap): the scan path runs the
+    snap sweeps alone, with the dynamic certificate off (no Newton
+    history), and does not give back feasibility vs its start."""
+    k = 4
+    rng = np.random.RandomState(5)
+    b = 4
+    wp = np.cumsum(rng.uniform(0.5, 2.0, size=(b, k + 1, 3)),
+                   axis=1).astype(np.float32)
+    free = make_structure(free_interior_mask(k + 1, N), D, N)
+    vals = np.zeros((b, k + 1, 5, 3), np.float32)
+    vals[:, :, 0, :] = wp
+    times = jnp.asarray(segment_times_nfabian(wp, 3.0, 5.0), jnp.float32)
+    radii = jnp.full((b, k, 2), 0.8, jnp.float32)
+    from mav_tube_trajectory_generation.solver import linear
+    df = jnp.asarray(linear.extract_fixed_values(free, jnp.asarray(vals)),
+                     jnp.float32)
+    admm = qcqp.ADMMConfig(rho=0.005, n_stages=1, n_iters=24,
+                           rho_tube_factor=0.125, rho_half_factor=0.125,
+                           padded_lanes=True)
+    a = qcqp.solve_qcqp_batch(free, df, times, jnp.asarray(wp), radii,
+                              config=admm, warmstart_values=vals,
+                              scenario_block=2)
+    snap = ipm_lanes.solve_qcqp_polished_batch(
+        free, df, times, jnp.asarray(wp), radii, admm_config=admm,
+        ipm_config=ipm.IPMConfig(n_iters=0, snap_iters=2, sigma_min=0.3,
+                                 corrector=False),
+        warmstart_values=vals, scenario_block=2)
+    v0 = np.asarray(a.max_violation)
+    v = np.asarray(snap.max_violation)
+    assert np.isfinite(np.asarray(snap.cost)).all()
+    assert not np.asarray(snap.infeasible).any()
+    assert (v <= np.maximum(v0, 0.0) + 1e-6).all(), (v, v0)

@@ -1,16 +1,15 @@
-"""ops/linalg: matmul-only batched linear algebra vs NumPy oracles.
+"""ops/linalg: batched SPD linear algebra vs NumPy oracles.
 
-The module exists because XLA:TPU's triangular_solve is latency-bound and its
-Cholesky custom call dominated the QCQP hot path; these tests pin the
-numerics of the matmul-only replacements (SURVEY.md section 7, stage 5
-"speed-of-light" requirement is a perf concern -- correctness is pinned here).
+These tests pin the numerics of the block-Schur and matmul-only triangular
+inverses the solvers use (SURVEY.md section 7, stage 5 "speed-of-light"
+requirement is a perf concern -- correctness is pinned here).
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mav_tube_trajectory_generation_tpu.ops import linalg
+from mav_tube_trajectory_generation.ops import linalg
 
 
 def _random_spd(rng, batch, n, cond):
@@ -29,10 +28,8 @@ def test_tri_lower_inverse_matches_numpy():
 
 @pytest.mark.parametrize("n", [1, 2, 3, 8, 45, 135])
 def test_spd_inverse_schur_f64(n):
-    # Residual scales ~cond * eps * O(100) (unpivoted block elimination;
-    # the scalar-unrolled adjugate leaves for n <= 9 trade ~1 extra decade
-    # of residual for a single fused kernel instead of ~30 dispatches).
-    # Measured worst 1.8e-10 at cond 1e4 across these sizes.
+    # Residual scales ~cond * eps * O(100) (unpivoted block elimination
+    # over LU-inverted leaves).
     rng = np.random.RandomState(n)
     a = _random_spd(rng, 3, n, 1e4)
     inv = np.asarray(linalg.spd_inverse_schur(jnp.asarray(a)))
@@ -64,8 +61,8 @@ def test_spd_inverse_matches_schur():
 def test_solve_linear_schur_matches_cholesky():
     """solve_linear(method='schur') agrees with the Cholesky path on the
     standard 10-segment family (the bench's warm-start configuration)."""
-    import mav_tube_trajectory_generation_tpu as mtg
-    from mav_tube_trajectory_generation_tpu.solver import linear, structure as sm
+    import mav_tube_trajectory_generation as mtg
+    from mav_tube_trajectory_generation.solver import linear, structure as sm
 
     rng = np.random.RandomState(11)
     k = 10

@@ -15,9 +15,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import mav_tube_trajectory_generation_tpu as mtg
-from mav_tube_trajectory_generation_tpu.ops import basis
-from mav_tube_trajectory_generation_tpu.solver import linear, structure as structure_mod
+import mav_tube_trajectory_generation as mtg
+from mav_tube_trajectory_generation.ops import basis
+from mav_tube_trajectory_generation.solver import linear, structure as structure_mod
 
 N = 10
 H = N // 2
@@ -285,7 +285,7 @@ def test_packing_roundtrip():
 
     # And through the coefficients: d_all = M^+ A p (the reference's
     # re-seeding identity, nonlinear_impl.h:199-272).
-    from mav_tube_trajectory_generation_tpu.ops import qmatrix
+    from mav_tube_trajectory_generation.ops import qmatrix
     d_seg_back = qmatrix.endpoint_derivatives_from_coefficients(
         sol.coefficients, times)
     compact2 = mtg.compact_from_segment_derivatives(structure, d_seg_back)
@@ -309,7 +309,7 @@ def test_time_allocation_bounds(heuristic):
     """Time-allocation sanity (TimeAllocation,
     test_polynomial_optimization.cpp:572-613): positive times, and the solved
     trajectory's extrema within 2.5x the heuristic's v/a bounds."""
-    from mav_tube_trajectory_generation_tpu.models import trajectory as tj
+    from mav_tube_trajectory_generation.models import trajectory as tj
     v_max, a_max = 2.0, 3.0
     ok_v = ok_a = total = 0
     for seed in range(5):

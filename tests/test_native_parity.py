@@ -11,9 +11,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import mav_tube_trajectory_generation_tpu as mtg
-from mav_tube_trajectory_generation_tpu import native
-from mav_tube_trajectory_generation_tpu.solver import structure as sm
+import mav_tube_trajectory_generation as mtg
+from mav_tube_trajectory_generation import native
+from mav_tube_trajectory_generation.solver import structure as sm
 
 N, H = 10, 5
 

@@ -18,13 +18,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import mav_tube_trajectory_generation_tpu as mtg
-from mav_tube_trajectory_generation_tpu import native
-from mav_tube_trajectory_generation_tpu.solver import (banded, ipm, linear,
+import mav_tube_trajectory_generation as mtg
+from mav_tube_trajectory_generation import native
+from mav_tube_trajectory_generation.solver import (banded, ipm, linear,
                                                        nonlinear, qcqp)
-from mav_tube_trajectory_generation_tpu.solver import structure as sm
-from mav_tube_trajectory_generation_tpu.models import trajectory as tj
-from mav_tube_trajectory_generation_tpu.ops import roots
+from mav_tube_trajectory_generation.solver import structure as sm
+from mav_tube_trajectory_generation.models import trajectory as tj
+from mav_tube_trajectory_generation.ops import roots
 
 NS = [8, 10, 12]
 
@@ -133,7 +133,7 @@ def test_qcqp_xla_f64_feasible(n):
     free, dff, times, wp, radii = qcqp_problem(n)
     s = qcqp.solve_qcqp(free, dff, times, wp, radii,
                         config=qcqp.ADMMConfig(n_stages=3, n_iters=40,
-                                               use_pallas=False))
+                                               padded_lanes=False))
     assert float(s.max_violation) < 5e-3, float(s.max_violation)
     assert np.isfinite(float(s.cost))
 
@@ -159,12 +159,12 @@ def test_qcqp_pallas_matches_xla_f32(n):
     args = (dff.astype(f32), times.astype(f32), wp.astype(f32),
             radii.astype(f32))
     sx = qcqp.solve_qcqp(free, *args, config=qcqp.ADMMConfig(
-        n_stages=2, n_iters=30, use_pallas=False))
+        n_stages=2, n_iters=30, padded_lanes=False))
     sp = qcqp.solve_qcqp(free, *args, config=qcqp.ADMMConfig(
-        n_stages=2, n_iters=30, use_pallas=True))
+        n_stages=2, n_iters=30, padded_lanes=True))
     s64 = qcqp.solve_qcqp(free, dff, times, wp, radii,
                           config=qcqp.ADMMConfig(n_stages=2, n_iters=30,
-                                                 use_pallas=False))
+                                                 padded_lanes=False))
     assert float(sp.max_violation) == pytest.approx(
         float(sx.max_violation), abs=1e-4)
     assert float(sp.cost) == pytest.approx(float(sx.cost), rel=1e-2)

@@ -7,9 +7,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import mav_tube_trajectory_generation_tpu as mtg
-from mav_tube_trajectory_generation_tpu.solver import linear, nonlinear
-from mav_tube_trajectory_generation_tpu.solver import structure as sm
+import mav_tube_trajectory_generation as mtg
+from mav_tube_trajectory_generation.solver import linear, nonlinear
+from mav_tube_trajectory_generation.solver import structure as sm
 
 N = 10
 H = N // 2
@@ -157,7 +157,7 @@ def test_vmapped_nonlinear_optimize():
 def test_time_objective_with_qcqp_inner():
     """TIME objective re-solving the tube QCQP per evaluation (the
     reference's objectiveFunctionTime path, stack 3.4 of SURVEY.md)."""
-    from mav_tube_trajectory_generation_tpu.solver import qcqp as qcqp_mod
+    from mav_tube_trajectory_generation.solver import qcqp as qcqp_mod
     k = 3
     rng = np.random.RandomState(5)
     waypoints = np.cumsum(rng.uniform(0.8, 1.5, size=(k + 1, 3)), axis=0)

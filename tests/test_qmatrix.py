@@ -9,7 +9,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mav_tube_trajectory_generation_tpu.ops import basis, qmatrix
+from mav_tube_trajectory_generation.ops import basis, qmatrix
 
 N = 10
 

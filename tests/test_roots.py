@@ -9,7 +9,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mav_tube_trajectory_generation_tpu.ops import roots
+from mav_tube_trajectory_generation.ops import roots
 
 
 def test_roots_in_interval_vs_companion():

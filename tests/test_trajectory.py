@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import mav_tube_trajectory_generation_tpu as mtg
-from mav_tube_trajectory_generation_tpu.models import trajectory as traj_mod
+import mav_tube_trajectory_generation as mtg
+from mav_tube_trajectory_generation.models import trajectory as traj_mod
 
 N = 10
 H = N // 2

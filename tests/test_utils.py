@@ -7,9 +7,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import mav_tube_trajectory_generation_tpu as mtg
-from mav_tube_trajectory_generation_tpu.models import segment as seg_mod
-from mav_tube_trajectory_generation_tpu.utils import (timing, export,
+import mav_tube_trajectory_generation as mtg
+from mav_tube_trajectory_generation.models import segment as seg_mod
+from mav_tube_trajectory_generation.utils import (timing, export,
                                                       checkpointing)
 
 N, H = 10, 5
@@ -128,7 +128,7 @@ def test_segment_dimension_ops():
 def test_pytree_checkpoint_treedef_mismatch(tmp_path):
     """A checkpoint unflattened into a structurally different template must
     raise, not silently produce a wrong pytree (round-1 VERDICT weak #4)."""
-    from mav_tube_trajectory_generation_tpu.utils import checkpointing
+    from mav_tube_trajectory_generation.utils import checkpointing
     path = str(tmp_path / "ckpt.npz")
     checkpointing.save_pytree(path, {"a": np.arange(3.0), "b": np.ones(2)})
     # Same leaf COUNT, different structure (dict keys differ).
